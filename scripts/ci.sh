@@ -1,13 +1,8 @@
 #!/bin/bash
-# One-command CI gate (round-3 VERDICT item 8): quick tier + slow tier
-# on the 8-virtual-device CPU mesh; --full adds the xslow tail
-# (multi-minute e2e/CV/parity tests). The interpret-mode kernel parity
-# tests are part of the quick tier; the real-TPU hardware gate stays
-# manual (scripts/tpu_kernel_check.py --check) because CI machines have
-# no chip.
-#
-# Timed round 4 (idle CPU): quick 15.0 min, slow-not-xslow 5.1 min,
-# xslow ~25 min; 'scripts/ci.sh' green end-to-end in 20.6 min.
+# One-command CI gate: quick tier + slow tier on the 8-virtual-device CPU
+# mesh; --full adds the xslow tail (multi-minute e2e/CV/parity tests).
+# The interpret-mode kernel parity tests are part of the quick tier; the
+# compiled-kernel tests (marker gpu) and chip_smoke.py run on a GPU.
 #
 # usage: scripts/ci.sh [--full] [extra pytest args...]
 set -e

@@ -424,7 +424,7 @@ def test_refine_views_slab_frozen_groups_match():
     # freeze groups at a *different* θ (zero translations), as outer 0
     # does; membership depends only on phi here, so batches match
     frozen0 = Views.create(n_proj, phi=phi)
-    gs, _ = slabp.scalar_groups(geom, frozen0, "arc")
+    gs, _ = slabp.scalar_groups(geom, frozen0)
     a = refine_views_slab(vol, meas, geom, init, param_set="xz",
                           max_iter=8)
     b = refine_views_slab(vol, meas, geom, init, param_set="xz",

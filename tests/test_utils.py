@@ -66,3 +66,59 @@ def test_cli_simulate_reconstruct(tmp_path):
     vol = io.load_volume(rec)
     assert vol.shape == (16, 16, 16)
     assert np.isfinite(vol).all()
+
+
+def test_npz_dataset_roundtrip(tmp_path):
+    """The .npz dataset keeps the reference's data/* layout and dtypes."""
+    path = str(tmp_path / "ds.npz")
+    rng = np.random.default_rng(1)
+    fields = {"projections": rng.random((3, 6, 5)).astype(np.float32),
+              "phi": np.linspace(0, np.pi, 3), "alpha": rng.random(3),
+              "beta": rng.random(3), "xyz": rng.random((3, 3))}
+    io.save_dataset(path, phantom=rng.random((6, 6, 5)).astype(np.float32),
+                    **fields)
+    d = io.load_dataset(path)
+    assert set(d) == set(fields) | {"phantom"}
+    for k, v in fields.items():
+        np.testing.assert_array_equal(d[k], v)
+        assert d[k].dtype == v.dtype
+    with np.load(path) as z:
+        assert "data/projections" in z.files
+
+
+def test_cli_simulate_reconstruct_npz(tmp_path):
+    from tomojax.cli import main
+    ds = str(tmp_path / "d.npz")
+    rec = str(tmp_path / "r.npy")
+    main(["simulate", "--size", "16", "--views", "8",
+          "--set", "simulate.family=slab", "-o", ds])
+    main(["reconstruct", "-i", ds, "-o", rec, "--pre-align", "com",
+          "--set", "solver.method=cgls", "--set", "solver.niter=5",
+          "--set", "solver.family=slab_plane"])
+    vol = io.load_volume(rec)
+    assert vol.shape == (16, 16, 16)
+    assert np.isfinite(vol).all()
+
+
+def test_compilation_cache_dir_default_in_checkout(monkeypatch):
+    import os
+    import tomojax
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(
+        tomojax.__file__)))
+    assert tomojax.compilation_cache_dir() == os.path.join(root,
+                                                           ".jax_cache")
+
+
+def test_compilation_cache_dir_follows_variable(monkeypatch, tmp_path):
+    import tomojax
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert tomojax.compilation_cache_dir() == str(tmp_path)
+
+
+def test_chip_smoke_refuses_cpu():
+    """chip_smoke.py measures the GPU: on the CPU its device phase exits
+    (non-zero) naming the missing GPU."""
+    import chip_smoke
+    with pytest.raises(SystemExit, match="no GPU"):
+        chip_smoke.device_phase()

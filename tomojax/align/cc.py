@@ -1,12 +1,12 @@
-"""FFT cross-correlation coarse alignment — batched TPU FFTs.
+"""FFT cross-correlation coarse alignment — batched FFTs.
 
-TPU-native replacement for the reference's ``align/align_cc.py``:
+Replacement for the reference's ``align/align_cc.py``:
 
 - :func:`phase_cross_correlation` — subpixel registration by upsampled
   matrix-multiply DFT (Guizar-Sicairos et al., Opt. Lett. 33, 2008); the
   in-framework replacement for the reference's skimage dependency
   (``align_cc.py:7``, used at ``:22`` and ``:34``). The upsampled DFT is two
-  small matmuls → MXU-friendly.
+  small matmuls.
 - :func:`cor_flipping` — center-of-rotation from the 0°/180° flipped pair
   (``align_cc.py:11-24``).
 - :func:`cross_correlation_chain` — sequential pairwise subpixel alignment,
@@ -14,7 +14,7 @@ TPU-native replacement for the reference's ``align/align_cc.py``:
   (``align_cc.py:27-38``) — a ``lax.scan`` over views with Fourier-shift
   resampling (the reference uses ``scipy.ndimage.shift`` spline
   interpolation; Fourier shift is the exact translation operator for
-  band-limited images and runs on TPU).
+  band-limited images and needs no host round trip).
 - :func:`cross_correlation_filtered` — the hand-rolled variant with sin²
   band-pass k-filter, sin² real-space window, integer-pixel shifts via
   argmax + roll, and the wraparound fix (``align_cc.py:41-86``).
@@ -50,7 +50,7 @@ def _upsampled_dft(data, region_size, upsample_factor, offsets):
 
     Computes the cross-correlation on a ``region_size × region_size`` grid
     of spacing ``1/upsample_factor`` centered by ``offsets`` — two small
-    complex matmuls (MXU work) instead of a giant zero-padded FFT.
+    complex matmuls instead of a giant zero-padded FFT.
     """
     ny, nx = data.shape
     ks = [jnp.fft.fftfreq(n) for n in (ny, nx)]
@@ -300,8 +300,10 @@ def align_to_reprojection(projections, geom, views, *, rounds: int = 2,
             # secant gain estimate; conservative cap — at near-total
             # attenuation larger gains amplify correlation noise (see
             # the docstring)
-            rho = float(jnp.vdot(shifts, prev).real
-                        / jnp.maximum(jnp.vdot(prev, prev).real, 1e-12))
+            rho = float(jnp.vdot(shifts, prev, precision="highest").real
+                        / jnp.maximum(jnp.vdot(prev, prev,
+                                               precision="highest").real,
+                                      1e-12))
             atten = max((1.0 - rho) / gain, 1e-3)
             gain = float(np.clip(1.0 / atten, 1.0, 8.0))
         prev = shifts
@@ -366,7 +368,8 @@ def com_align(projections, geom, phi, dtype=jnp.float32):
     # (no per-call host lstsq round trip — round-3 VERDICT item 6)
     basis = np.stack([np.ones_like(phi), np.cos(phi), np.sin(phi)], 1)
     proj_mat = jnp.asarray(basis @ np.linalg.pinv(basis), dtype)
-    tx = proj_mat @ u_com - u_com
+    tx = (jnp.matmul(proj_mat, u_com, precision=lax.Precision.HIGHEST)
+          - u_com)
     tz = jnp.mean(v_com) - v_com
     return jnp.stack([tx, tz], axis=1)
 

@@ -1,6 +1,6 @@
 """Per-view 6-DoF rigid refinement — vmapped, jitted, bounded.
 
-TPU-native replacement for the reference's alignment layer:
+Replacement for the reference's alignment layer:
 
 - ``AlignmentUtilities.cost/gradient`` (``utilities/alignment_functions.py:7-37``)
   → :func:`alignment_cost` / :func:`alignment_cost_grad` (fused analytic
@@ -66,7 +66,7 @@ def alignment_cost(vol, proj_meas, geom: Geometry, theta6, cor,
                                       theta6[5], theta6[:3], cor,
                                       dtype=dtype)
     r = pred - proj_meas.reshape(-1).astype(pred.dtype)
-    return 0.5 * jnp.vdot(r, r).real.astype(pred.dtype)
+    return 0.5 * jnp.vdot(r, r, precision="highest").real.astype(pred.dtype)
 
 
 def alignment_cost_grad(vol, proj_meas, geom: Geometry, theta6, cor,
@@ -78,7 +78,7 @@ def alignment_cost_grad(vol, proj_meas, geom: Geometry, theta6, cor,
         vol, geom, theta6[3], theta6[4], theta6[5], theta6[:3], cor,
         dtype=dtype)
     r = pred - proj_meas.reshape(-1).astype(pred.dtype)
-    cost = 0.5 * jnp.vdot(r, r).real.astype(pred.dtype)
+    cost = 0.5 * jnp.vdot(r, r, precision="highest").real.astype(pred.dtype)
     grad = jnp.matmul(jac, r, precision="highest")
     return cost, grad, r, jac
 

@@ -1,12 +1,10 @@
-"""Fast multi-pass projector family — line-gathers + banded MXU matmuls.
+"""Fast multi-pass projector family — line-gathers + banded matmuls.
 
-Why this exists: the exact ray-march projector (``projector.py``) needs
-8 random volume reads per sample — 268M element-gathers per 256³ view.
-Measured on TPU v5e, XLA element-gather sustains ~0.11 G elements/s
-(≈ 2.4 s/view) while contiguous z-line gathers sustain ~67 GB/s and banded
-matmuls run on the MXU. This module reformulates the same parallel-beam
-X-ray transform so that *all* memory access is line-granular and all
-resampling arithmetic is elementwise or matmul:
+The exact ray-march projector (``projector.py``) needs 8 random volume
+reads per sample — 268M element-gathers per 256³ view. This module
+reformulates the same parallel-beam X-ray transform so that *all* memory
+access is line-granular and all resampling arithmetic is elementwise or
+matmul:
 
 Sample points are affine in the (detector-u, detector-v, march-step-j)
 indices: ``p(u, v, j) = B + u·EU + v·EV + j·ED`` (rigid transforms of the
@@ -41,37 +39,6 @@ from jax import lax
 from tomojax.core.geometry import Geometry, Views
 from tomojax.core.rotations import rot_x, rot_y, rot_z
 from tomojax.core.projector import _mm
-
-
-def _use_pallas(n_minor: int, dtype) -> bool:
-    """Route the resample primitive through the Pallas kernel on TPU.
-
-    The kernel needs 128-multiple minor dims and f32; set
-    ``TOMOJAX_NO_PALLAS=1`` to force the XLA fallback (e.g. for A/B
-    comparisons)."""
-    import os
-    if os.environ.get("TOMOJAX_NO_PALLAS"):
-        return False
-    try:
-        backend = jax.default_backend()
-    except Exception:
-        return False
-    return backend == "tpu" and n_minor % 128 == 0 and dtype == jnp.float32
-
-
-def _band_precision():
-    """Precision for the banded selection matmuls.
-
-    TPU: HIGH (bf16x3 passes, ~2^-21-faithful — HIGHEST lowers to a ~50×
-    slower path on v5e). CPU: HIGHEST (exact f32; this keeps the CPU test
-    oracle noise-free so solver tests see clean adjoint pairs).
-    """
-    try:
-        platform = jax.default_backend()
-    except Exception:
-        platform = "cpu"
-    return (lax.Precision.HIGHEST if platform == "cpu"
-            else lax.Precision.HIGH)
 
 
 def view_affine(geom: Geometry, phi, alpha, beta, t, cor, dtype):
@@ -110,8 +77,7 @@ def view_affine(geom: Geometry, phi, alpha, beta, t, cor, dtype):
     return E, B
 
 
-def _resample_minor(arr, offsets, slope, m_out: int, max_slope: float,
-                    linear_only: bool = False):
+def _resample_minor(arr, offsets, slope, m_out: int, max_slope: float):
     """Affine 1-D resample along the minor axis of ``arr`` (A, B, N).
 
     ``out[a, b, i] = lerp(arr[a, b, :], offsets[a, b] + slope * i)`` with
@@ -121,26 +87,17 @@ def _resample_minor(arr, offsets, slope, m_out: int, max_slope: float,
     ``max_slope`` bounds |slope| statically (octant guarantee); the sign of
     ``slope`` may be either (traced).
 
-    Performance notes (measured on TPU v5e):
+    Notes:
     - window gathers go through ``lax.gather`` of contiguous 1-D slices from
-      the flattened padded buffer (~line-gather bandwidth); the naive
-      vmapped ``dynamic_slice`` lowers ~100× slower;
+      the flattened padded buffer, not a vmapped ``dynamic_slice``;
     - the three banded matmuls are fused into one ``(A·B, q) × (q, 3M)``
-      contraction at ``Precision.HIGH`` (bf16x3 passes, f32-faithful for
-      0/1 selection; HIGHEST lowers to a ~50× slower path);
+      contraction at ``Precision.HIGHEST`` (exact for 0/1 selection; a
+      lower precision would run f32 operands through TF32 on a GPU);
     - the output axis is chunked so windows never greatly exceed the data
       length N (long sweeps re-anchor per chunk).
     """
     A, Bc, N = arr.shape
     dtype = arr.dtype
-
-    if _use_pallas(N, dtype):
-        from tomojax.kernels.resample import resample_rows_pallas
-        out = resample_rows_pallas(arr.reshape(A * Bc, N),
-                                   offsets.reshape(-1).astype(dtype),
-                                   jnp.asarray(slope, dtype), m_out,
-                                   max_slope, linear_only=linear_only)
-        return out.reshape(A, Bc, m_out)
 
     # chunk the output so each window stays near the data length
     max_chunk = max(int((N + 2) / max(max_slope, 1e-6)), 16)
@@ -194,7 +151,7 @@ def _resample_minor(arr, offsets, slope, m_out: int, max_slope: float,
                            (k0q == 2.0).astype(dtype)], axis=0)  # (3M, q)
     s_all = jax.lax.dot_general(lines, sel,
                                 (((1,), (1,)), ((), ())),
-                                precision=_band_precision())   # (A·B, 3M)
+                                precision=lax.Precision.HIGHEST)  # (A·B, 3M)
     s0v, s1v, s2v = (s_all[:, :m_out], s_all[:, m_out:2 * m_out],
                      s_all[:, 2 * m_out:])
     in_lo = tau < 1.0
@@ -261,8 +218,7 @@ def forward_view(vol, geom: Geometry, phi, alpha, beta, t, cor,
     return lax.cond(swap, sw, st, None)
 
 
-def _forward_marching_y(vol, E, B, geom: Geometry, dtype,
-                        linear_only: bool = False):
+def _forward_marching_y(vol, E, B, geom: Geometry, dtype):
     """y-marching fast forward (|ED_y| dominant, |EU_x| bounded below)."""
     nx, ny, nz = vol.shape
     nu, nv = geom.det_shape
@@ -281,8 +237,7 @@ def _forward_marching_y(vol, E, B, geom: Geometry, dtype,
     zeta_slope = inv_g12
     # |1/G12| ≈ dv·(1 + O(jitter)); static bound 1.2·dv covers ±10° jitter
     i1 = _resample_minor(vol, zeta0, zeta_slope, nv,
-                         max_slope=1.2 * geom.det_pix[1],
-                         linear_only=linear_only)
+                         max_slope=1.2 * geom.det_pix[1])
 
     # ---- pass 2: resample y; I2(x, j, v) = I1(x, y*(x, j, v), v) --------
     # u(x, j, v) = (x − Bx − EVx v − EDx j)/EUx;  y* = By + EUy u + EVy v + EDy j
@@ -295,8 +250,7 @@ def _forward_marching_y(vol, E, B, geom: Geometry, dtype,
     yj = ED[1] - cu * ED[0]
     # |yj| = step·det2/R00 ≤ step/cos45° · (1 + O(jitter)); 1.6·step is safe
     i2 = _resample_minor(i1_t, y0, yj, nj,
-                         max_slope=1.6 * geom.step_size,
-                         linear_only=linear_only)
+                         max_slope=1.6 * geom.step_size)
 
     # ---- pass 3: resample x + reduce j ----------------------------------
     # x*(u, j, v) = Bx + EUx u + EVx v + EDx j
@@ -304,8 +258,7 @@ def _forward_marching_y(vol, E, B, geom: Geometry, dtype,
     j_idx = jnp.arange(nj, dtype=dtype)
     x0 = B[0] + EV[0] * v_idx[None, :] + ED[0] * j_idx[:, None]
     out = _resample_minor(i2_t, x0, EU[0], nu,
-                          max_slope=1.2 * geom.det_pix[0],
-                          linear_only=linear_only)          # (nj, nv, nu)
+                          max_slope=1.2 * geom.det_pix[0])  # (nj, nv, nu)
     sino = jnp.sum(out, axis=0)  # (nv, nu)
     return sino.T.reshape(-1)    # u-major like the exact family
 
@@ -315,7 +268,7 @@ def _take_views(views: Views, idx) -> Views:
 
 
 def _project_group(vol, geom: Geometry, views: Views, swapped: bool, dtype,
-                   views_chunk, linear_only: bool = False):
+                   views_chunk):
     """All views in one octant group: the volume transpose (if any) is
     shared, no in-graph branching."""
     if swapped:
@@ -328,8 +281,7 @@ def _project_group(vol, geom: Geometry, views: Views, swapped: bool, dtype,
         E, B = view_affine(geom, v.phi, v.alpha, v.beta, v.t, v.cor, dtype)
         if swapped:
             E, B = _mm(perm, E), _mm(perm, B)
-        return _forward_marching_y(vol_use, E, B, geom, dtype,
-                                   linear_only=linear_only)
+        return _forward_marching_y(vol_use, E, B, geom, dtype)
 
     n = views.n_proj
     chunk = views_chunk or max(1, min(n, (1 << 26) // max(1, geom.n_vox)))
@@ -375,7 +327,7 @@ def backproject(sino, geom: Geometry, views: Views, *, dtype=jnp.float32,
     Implemented with ``jax.vjp`` linearized at zero — identical to the
     transpose for a linear map (the forward-on-zeros primal is dead code
     XLA largely folds away), and unlike ``jax.linear_transpose`` it works
-    through the Pallas kernels' ``custom_vjp`` and through ``lax.cond``.
+    through ``lax.cond``.
     """
     flags = swap_flags(views)
     sino = sino.reshape(geom.n_proj, geom.n_det).astype(dtype)
@@ -385,10 +337,8 @@ def backproject(sino, geom: Geometry, views: Views, *, dtype=jnp.float32,
         if idx.size == 0:
             continue
         sub = _take_views(views, jnp.asarray(idx))
-        # linear_only: the solver adjoint discards theta cotangents, so the
-        # lean transpose-only backward kernel applies (~2x cheaper)
         fwd = lambda v: _project_group(v, geom, sub, swapped, dtype,
-                                       views_chunk, linear_only=True)
+                                       views_chunk)
         ct = sino[jnp.asarray(idx)]
         _, vjp_fn = jax.vjp(fwd, jnp.zeros(geom.vox_shape, dtype))
         (vol_bar,) = vjp_fn(ct)

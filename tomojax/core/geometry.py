@@ -1,6 +1,6 @@
 """Parallel-beam acquisition geometry and per-view rigid parameters.
 
-TPU-native re-design of the reference's ``utilities/geometry.py:9-105``.
+Re-design of the reference's ``utilities/geometry.py:9-105``.
 
 Two deliberate differences from the reference:
 

@@ -15,11 +15,11 @@ Three projector families (the reference itself mixes two discretizations,
   safe for CGLS. The bit-parity/oracle path.
 - ``family="voxel"`` — voxel-driven bilinear splat forward with its exact
   gather transpose (``vox_wt_grad.f90`` semantics). The adjoint is
-  gather-based (TPU-friendly backprojection).
+  gather-based.
 - ``family="fast"``  — multi-pass resampling formulation of the ray
-  transform (line-gathers + MXU banded matmuls, ``fast_projector.py``);
-  ~2-3 orders of magnitude faster than "ray" on TPU, ≲ few % discretization
-  difference. Exact transpose via ``jax.linear_transpose``.
+  transform (line-gathers + banded matmuls, ``fast_projector.py``);
+  ≲ few % discretization difference from "ray". Exact transpose via
+  ``jax.vjp``.
 - ``family="slab"``  — slab-marching reformulation with the reference's
   exact arc-quadrature sample positions (``slab_projector.py``,
   ``quad="arc"``): identical to "ray" at zero rigid jitter, ≲0.3% at ±1°
@@ -77,14 +77,11 @@ class TomoOperator:
 
 def make_operator(geom: Geometry, views: Views, *, family: str = "ray",
                   dtype=jnp.float32, views_chunk: int | None = None,
-                  voxel_mask=None, prec: str | None = None) -> TomoOperator:
+                  voxel_mask=None) -> TomoOperator:
     """Build the matrix-free projection operator for a set of views.
 
     :param voxel_mask: optional boolean volume; False voxels are excluded
         from the system (reference ``projection_operators.py:60-70``).
-    :param prec: slab-family kernel matmul tier (``f32x2``/``bf16``, see
-        :func:`tomojax.kernels.slab.resolve_prec`); ignored by other
-        families.
     """
     mask = None
     if voxel_mask is not None:
@@ -129,12 +126,12 @@ def make_operator(geom: Geometry, views: Views, *, family: str = "ray",
             if mask is not None:
                 x = x * mask
             return slabp.project(x, geom, views, dtype=dtype, quad=quad,
-                                 views_chunk=views_chunk, prec=prec)
+                                 views_chunk=views_chunk)
 
         def AT(y):
             out = slabp.backproject(y.reshape(geom.n_proj, geom.n_det),
                                     geom, views, dtype=dtype, quad=quad,
-                                    views_chunk=views_chunk, prec=prec)
+                                    views_chunk=views_chunk)
             return out * mask if mask is not None else out
 
     elif family == "voxel":

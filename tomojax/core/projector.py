@@ -1,4 +1,4 @@
-"""Matrix-free differentiable ray-driven projector (the TPU-native core).
+"""Matrix-free differentiable ray-driven projector (the exact reference family).
 
 This module replaces, in one differentiable function family, the reference's:
 
@@ -11,10 +11,10 @@ This module replaces, in one differentiable function family, the reference's:
 - the all-Fortran pipeline (``src/forward_projection.f90``,
   ``src/projection_gradient.f90``, ``src/external_forward_projection.f90``)
 
-Design (TPU-first, not a port):
+Design (accelerator-first, not a port):
 
 - **Matrix-free.** The reference materializes a CSR matrix with
-  ``8 * n_rays * n_steps`` weights per view — wrong for TPU (dynamic nnz,
+  ``8 * n_rays * n_steps`` weights per view — wrong for an accelerator (dynamic nnz,
   scatter/gather spmv). Here interpolation weights are recomputed on the fly
   inside a ``lax.scan`` over ray-march steps; A and Aᵀ are jitted functions.
 - **Static shapes.** The sample count per ray is
@@ -278,7 +278,7 @@ def forward_view_jac(vol, geom: Geometry, phi, alpha, beta, t, cor,
     """Fused projection + analytic 6-DoF Jacobian for one view.
 
     Returns ``(det_img (n_det,), jac (6, n_det))`` with parameter order
-    ``(tx, ty, tz, phi, alpha, beta)`` — the TPU-native equivalent of
+    ``(tx, ty, tz, phi, alpha, beta)`` — the equivalent of
     ``trilinear_ray_interp`` (``src/ray_wt_grad.f90:95-223``) via
     ``forward_proj_grad`` (``ray_voxel_utilities.py:113-170``).
 

@@ -1,6 +1,6 @@
 """Rotation matrices and their analytic angle-derivatives (pure jnp).
 
-TPU-native equivalent of the reference's ``utilities/rotations.py:9-48`` and
+Equivalent of the reference's ``utilities/rotations.py:9-48`` and
 ``src/rotations_module.f90:6-103``. All functions accept scalar (or batched,
 via vmap) angles and return ``(3, 3)`` matrices in the dtype of the input.
 
@@ -18,8 +18,9 @@ import jax.numpy as jnp
 
 def _mm(a, b):
     """Matmul at HIGHEST precision — geometry math must not go through the
-    backend's default bf16 matmul passes (f32 inputs on TPU, and on some CPU
-    builds, otherwise quantize to ~2^-8 relative error)."""
+    backend's default reduced-precision matmul passes (TF32 on a GPU, bf16
+    on some CPU builds: f32 inputs would otherwise quantize to ~2^-8..2^-11
+    relative error)."""
     return jnp.matmul(a, b, precision="highest")
 
 

@@ -1,6 +1,6 @@
 """Voxel-driven projector family (bilinear splat / detector gather).
 
-TPU-native replacement for the reference's voxel path:
+Replacement for the reference's voxel path:
 ``utilities/voxel_utilities.py`` + ``src/vox_wt_grad.f90``
 (``bilinear_sparse``, ``bilinear_vox_interp``) and the all-Fortran adjoint
 ``src/back_projection.f90`` / ``src/external_back_projection.f90``
@@ -17,7 +17,7 @@ Semantics (kept identical to the reference):
 - forward = bilinear *splat* of voxel values to the 4 surrounding detector
   pixels (per-corner bounds guards, ``vox_wt_grad.f90:77-108``);
 - adjoint = bilinear *gather* from the detector at each voxel's footprint —
-  gather-based and hence the TPU-friendly backprojection
+  gather-based, so the backprojection needs no scatter
   (``external_back_projection.f90:30-68``).
 
 Deviations (deliberate, documented):
@@ -43,8 +43,8 @@ design. The reference ships ``vox_wt_grad.f90`` as its second compiled
 production kernel; tomojax's production replacement for BOTH reference
 families is the slab family (``core/slab_projector.py`` +
 ``kernels/slab.py``), whose arc quadrature is machine-exact vs the exact
-ray family and which owns the fused TPU kernels. A dedicated voxel-splat
-Pallas kernel would duplicate the slab adjoint's role at lower accuracy
+ray family and which owns the GPU kernel. A dedicated voxel-splat
+kernel would duplicate the slab adjoint's role at lower accuracy
 (splat aliasing — see ``tests/test_voxel_projector.py::
 test_voxel_jacobian_consistent_with_ray_family``), so the voxel family
 stays as: (a) the independent cross-check oracle for adjoint/Jacobian
@@ -160,7 +160,7 @@ def forward_view(vol, geom: Geometry, phi, alpha, beta, t, cor,
 def backproject_view(det_img, geom: Geometry, phi, alpha, beta, t, cor,
                      *, dtype=jnp.float32):
     """Voxel-driven backprojection (exact transpose of voxel forward):
-    per-voxel bilinear *gather* from the detector image — the TPU-friendly
+    per-voxel bilinear *gather* from the detector image — a scatter-free
     adjoint (``voxel_back_bilinear``, ``external_back_projection.f90:30-68``).
     """
     fx, fz, ax, az, _ = _footprint(geom, phi, alpha, beta, t, cor, dtype)
@@ -175,7 +175,7 @@ def forward_view_jac(vol, geom: Geometry, phi, alpha, beta, t, cor,
                      *, dtype=jnp.float32):
     """Fused voxel-driven projection + analytic 6-DoF gradient.
 
-    Returns ``(det_img (n_det,), grad (6, n_det))`` — the TPU-native
+    Returns ``(det_img (n_det,), grad (6, n_det))`` — the equivalent of
     ``bilinear_vox_interp`` (``vox_wt_grad.f90:1-55``) with the corrected
     gradient sign (module docstring deviation #2). Only the x- and
     z-components of ``∂p/∂θ`` enter (orthographic projection along y,

@@ -1,3 +1,4 @@
-from tomojax.kernels.resample import resample_rows_pallas
+"""Hand-written GPU kernels (Pallas through Triton).
 
-__all__ = ["resample_rows_pallas"]
+- :mod:`tomojax.kernels.slab` — the slab family's plane-quadrature forward.
+"""

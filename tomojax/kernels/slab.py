@@ -1,1049 +1,120 @@
-"""Fused Pallas TPU kernel for the slab-marching projector family.
+"""Pallas-Triton kernel for the slab family's plane-quadrature forward.
 
-One kernel invocation computes a whole batch of same-orientation views:
-grid = (view, slab-chunk). Per grid step the kernel consumes K+1 volume
-slabs (pre-windowed host-side into an overlapped (C, K+1, nx, NZP) array so
-Pallas auto-pipelines the HBM→VMEM transfers) and accumulates the view's
-sinogram block in VMEM; the sinogram is written back once per view.
+Same math as ``slab_projector._forward_oriented_xla(quad="plane")``: for
+each slab plane ``s`` of the oriented volume a ray ``(u, v)`` samples the
+plane at
 
-Math identical to ``slab_projector._forward_oriented_xla`` (same operator,
-f32): per source slab r and branch b the arc samples sit at
+    X(u, v, s) = cx_s + eux*u + evx*v,                cx_s = cxb + rx*s
+    ζ(x, v, s) = cz_s + gzx*(x - cx_s) + zav*v,       cz_s = czb + rz*s
 
-    X(u,v) = cx_r + u*eux + v*evx + edx*cfb(u,v)
-    fy     = edy*cfb,   cfb = ceil(w_uv) + b - w_uv        (the sawtooth)
+with ζ evaluated at the two integer x taps of ``X``: the read is
+``Σ_{x∈{x0,x0+1}} hat(X - x) · lerp_z(slab_s[x, :], ζ(x, v, s))``, every
+out-of-volume tap contributes zero, and the slab sum is scaled by
+``1/edy``. A window of the detector (rows ``v_off + [0, nv)``, volume
+planes indexed ``z + z_off``) computes positions with the global row and
+shifts the z taps by the integer ``z_off``, as the XLA path does.
 
-and contribute ``(1-fy)*bilerp(slab_r) + fy*bilerp(slab_{r+1})``
-(reference arc quadrature, ``ray_voxel_utilities.py:88-94``); plane mode is
-the single-sided single-branch subset scaled by ``1/edy`` (arc samples per
-unit y — mass-matched to the arc family at any step_size).
+One program computes one ``(BU, BV)`` detector tile of one view and loops
+over the ``ny`` slabs with the sum in registers. Each slab costs four
+masked gathers per ray straight from the volume in device memory, so none
+of the XLA path's per-slab ``(K, nx, nv)``/``(K, nv, nu)`` intermediates
+is written. A tile's footprint in one slab is about ``BU × BV`` voxels,
+so the gathers stay in L1/L2. Detector v is the tile's fast axis: along v
+the z taps advance by ``zav ≈ 1``, so neighbouring threads read
+neighbouring words.
 
-TPU mapping (constraints probed on v5e Mosaic):
-
-- pass A (z-interp, slope ≈ +1): the z-taps track the detector-v lane
-  index along a diagonal whose intercept ``zoff`` is dynamic (per view and
-  slab) — and dynamic-start lane slices are illegal in Mosaic. One
-  *align* selection matmul per (slab, x-chunk, side) gathers the volume
-  rows into diagonal-aligned coordinates ``aligned[x, q] =
-  rows[x, zoff + q]`` (N = nv + NVA_PAD one-hot columns); the MBA
-  interpolation bands are then *static* lane slices ``aligned[:, m:m+nv]``
-  hat-weighted on the VPU. The align matmul is branch- and
-  weight-variant-shared (round-2 design re-did an N = MBA·nv gather per
-  branch — 9.3× the MXU flops of this formulation in arc mode).
-- pass B (x-interp, |slope| up to ~1.7): banded one-hot selection matmul
-  on the MXU, built once per view (forward) / per step (adjoint). Window
-  anchors are 8-aligned by construction (dynamic sublane slices must be);
-  the 0..7 anchor residual selects one of 8 pre-built (NBB*UCH, WINB)
-  selection blocks by an 8-aligned dynamic sublane slice (round 3b; the
-  earlier fold of the residual into 7 EXTRA bands cost 15/8 of the
-  matmul + band-combine work). UCH = 64 / WINB = 128 halve the selection
-  flops vs round 2 (K = 128 is the MXU contraction floor, so a smaller
-  window costs nothing extra).
-- selection is exact in bf16 (0/1); f32 operands are split hi/lo into two
-  bf16 MXU passes (~4e-6 faithful).
-- per-element hat weights, the fy slab-pair blend, and march-range masks
-  run on the VPU with exact per-sample positions (iotas + SMEM scalars).
-
-The adjoint kernel transposes the dataflow: slab-major grid so each output
-slab block stays VMEM-resident while every view accumulates into it
-(volume written to HBM exactly once per apply, regardless of view count).
-Its pass-A transpose accumulates the banded cotangents into the aligned
-frame (static lane shifts) and scatters with ONE matmul against the same
-one-hot — replacing both round-2 variants (the banded VPU loop that made
-the adjoint 1.6× slower than the forward, and the N = MBA·nv matmul that
-crashed the Mosaic compiler at 256³).
+There is no transpose kernel: the adjoint is XLA's transpose of the XLA
+forward (see ``slab_projector._plane_forward``).
 """
 
 from __future__ import annotations
 
-import functools
-import os
-
-import numpy as np
 import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-# ---- static configuration -------------------------------------------------
-PADZ = 64          # z pads (lanes) each side of the slab
-#                    (also keeps NZP = nz + 2*PADZ a 128-
-#                    multiple for power-of-two nz: Mosaic
-#                    rejects matmul outputs on odd lane tiles)
-XP = 128           # x pad below T's interior: the pass-B window anchor
-#                    tracks cx_r (the selection identity forces
-#                    m = floor(X) - k0(du) - (wtp - XP) ~ cx_r - anchor),
-#                    and chunks with in-volume samples have
-#                    xc >= -(|eux|*(UCH-1) + slack) > -XP; beyond that the
-#                    chunk is empty and skipped
-XPH = 128          # x pad above (windows anchor at their bottom and
-#                    extend WINB rows; taps occupy only the low
-#                    ~|eux|*UCH+NBB of that, the rest reads zero pad)
-UCH = 64           # u-chunk (pass-B matmul LHS granularity)
-VCH = 128          # v-chunk (pass-B weight-tile lanes)
-NBB = 7            # pass-B bands: needed m ∈ (O-D-1, O+D+3) for the
-#                    interval bound D (see _window_anchor); with O = 2
-#                    that is m ∈ [0, 6] at the D < 2 budget — 7 bands.
-#                    (Round ≤3 used O = 3 / NBB = 8, whose band 0
-#                    satisfies m > O-D-1 = 0 ⇒ hat weight provably zero:
-#                    a dead band costing 8/7 of the selection matmul.)
-#                    The 8-aligned anchor residual picks one of 8
-#                    pre-built selection blocks (see _build_selection) —
-#                    NOT extra bands (that cost 15/8 flops, round <=3a)
-OFB = 2            # pass-B window-anchor offset O above
-XCH_A = 64         # pass-A align-matmul x-chunk rows
-MBA = 7            # pass-A interpolation bands (taps 2 + frac + chunk gzx
-#                    drift + both branches' edz dev + zav drift)
-NVA_PAD = 128      # aligned-frame extra lanes beyond nv (>= MBA - 1,
-#                    rounded to the 128-lane tile)
-WINB = 128         # pass-B T-row window (holds 8 + |eux|*(UCH-1) + NBB + 7)
-NS = 21            # scalar count
-
-(S_EDY, S_EDX, S_EDZ, S_RX, S_RZ, S_EUX, S_EVX, S_EVZ, S_CXB, S_CZB,
- S_GZX, S_B1, S_EUY, S_EVY, S_INV_EDY, S_WAX, S_WAV, S_SCALE, S_INV_EUX,
- S_EUYIEUX, S_ZAV) = range(NS)
+# per-view parameter row consumed by the kernel, in this order
+PARAMS = ("rx", "rz", "eux", "evx", "cxb", "czb", "gzx", "zav", "inv_edy",
+          "v_off", "z_off")
+BLOCK = (32, 32)   # (BU, BV) detector tile; powers of two
 
 
-def _build_selection(eux):
-    """(8*NBB*UCH, WINB) one-hots: 8 stacked (NBB*UCH, WINB) selection
-    blocks, one per 8-aligned window-anchor residual ``a`` in 0..7; block
-    ``a`` row (m, du) selects tap ``k0(du) + m + a``.
-
-    Round-3b rework: the residual used to be folded into 7 EXTRA bands
-    (NBBW = NBB + 7 = 15) on one shared selection — 15/8 of the matmul
-    flops and band-combine work were wasted on bands whose hat weight is
-    zero for the tile's actual residual.  Pre-building the 8 residual
-    variants and slicing the right block per tile (the 512-row block
-    offset is 8-aligned, so Mosaic's dynamic sublane-slice rule is
-    satisfied) keeps the selection statically indexed at NBB = 8 bands —
-    a 15/8 MXU + VPU cut on pass B, the kernel's dominant cost
-    (docs/STATUS.md round-3 trace: ~52% MXU-bound on this matmul)."""
-    rows = 8 * NBB * UCH
-    col = lax.broadcasted_iota(jnp.int32, (rows, WINB), 1)
-    row = lax.broadcasted_iota(jnp.int32, (rows, WINB), 0)
-    du = (row % UCH).astype(jnp.float32)
-    m = (row // UCH) % NBB
-    a = row // (NBB * UCH)
-    k0 = jnp.floor(eux * du).astype(jnp.int32)
-    return (col == k0 + m + a).astype(jnp.bfloat16)
-
-
-def _hat(d):
-    return jnp.maximum(0.0, 1.0 - jnp.abs(d))
-
-
-def _dhat(d):
-    """d/dpos of hat(pos - tap): -sign(d) on |d| < 1 (a.e.)."""
-    return jnp.where(jnp.abs(d) < 1.0, -jnp.sign(d), 0.0)
-
-
-def _mhat(d):
-    """(tap - pos)-moment weight: -d·hat(d)."""
-    return -d * _hat(d)
-
-
-def _build_selza(zoff, nzp, nva):
-    """(NZP, NVA) one-hot align gather: ``aligned[x, q] = rows[x, zoff+q]``
-    (no hit → 0, so q columns beyond the volume are harmlessly zero)."""
-    z = lax.broadcasted_iota(jnp.int32, (nzp, nva), 0)
-    q = lax.broadcasted_iota(jnp.int32, (nzp, nva), 1)
-    return (z == q + zoff).astype(jnp.bfloat16)
-
-
-def _xch(nx):
-    """Pass-A align-matmul x-chunk: largest of (64, 32, 16) dividing nx."""
-    for c in (XCH_A, 32, 16):
-        if nx % c == 0:
-            return c
-    return None
-
-
-def _pass_a_zeta_chunk(p, xc0, r, b, cx_r, cz_r, wa0r, nv, arc,
-                       xch=XCH_A):
-    """zeta + (cf+b) tiles (xch, nv) for pass A (unpadded z coords); cfb
-    is the grid sawtooth weight the 'zc' Jacobian variant needs."""
+def _plane_fwd_kernel(p_ref, vol_ref, out_ref, *, nx, ny, nz, bu, bv):
+    b = pl.program_id(0)
     f32 = jnp.float32
-    x_t = float(xc0) + lax.broadcasted_iota(
-        jnp.int32, (xch, nv), 0).astype(f32)
-    v_t = lax.broadcasted_iota(jnp.int32, (xch, nv), 1).astype(f32)
-    zaff = cz_r + p.gzx * (x_t - cx_r - v_t * p.evx) + v_t * p.evz
-    if arc:
-        w_xv = wa0r + p.wax * x_t + p.wav * v_t
-        cf = jnp.ceil(w_xv) - w_xv
-        zeta = zaff + p.edz * (cf + float(b))
-        cfb = cf + float(b)
-    else:
-        zeta = zaff
-        cfb = jnp.zeros((xch, nv), f32)
-    return zeta, v_t, cfb
+    rx, rz, eux, evx, cxb, czb, gzx, zav, inv_edy, v_off, z_off = (
+        p_ref[b, i] for i in range(len(PARAMS)))
+    z_off = z_off.astype(jnp.int32)
+
+    u = (pl.program_id(1) * bu
+         + lax.broadcasted_iota(jnp.int32, (bu, bv), 0)).astype(f32)
+    v = (pl.program_id(2) * bv
+         + lax.broadcasted_iota(jnp.int32, (bu, bv), 1)).astype(f32) + v_off
+    xuv = u * eux + v * evx
+    zv = v * zav
+
+    def tap(s_off, xi, wx, cx, cz):
+        """wx · lerp_z(slab[xi, :], ζ(xi, v)), zero outside the volume."""
+        zeta = cz + gzx * (xi.astype(f32) - cx) + zv
+        z0f = jnp.floor(zeta)
+        wz = zeta - z0f
+        z0 = z0f.astype(jnp.int32) + z_off
+        in_x = (xi >= 0) & (xi < nx)
+        at = xi * (ny * nz) + s_off + z0     # row-major (nx, ny, nz)
+        lo = plgpu.load(vol_ref.at[at], other=0.0,
+                        mask=in_x & (z0 >= 0) & (z0 < nz))
+        hi = plgpu.load(vol_ref.at[at + 1], other=0.0,
+                        mask=in_x & (z0 >= -1) & (z0 < nz - 1))
+        return wx * ((1.0 - wz) * lo + wz * hi)
+
+    def body(s, acc):
+        sf = s.astype(f32)
+        cx = cxb + rx * sf
+        cz = czb + rz * sf
+        X = cx + xuv
+        x0f = jnp.floor(X)
+        wx = X - x0f
+        x0 = x0f.astype(jnp.int32)
+        s_off = s * nz
+        return (acc + tap(s_off, x0, 1.0 - wx, cx, cz)
+                + tap(s_off, x0 + 1, wx, cx, cz))
+
+    acc = lax.fori_loop(0, ny, body, jnp.zeros((bu, bv), f32))
+    out_ref[...] = acc * inv_edy
 
 
-def _pass_a_zoff(p, xc0, r, cx_r, cz_r, nv, nzp, arc, xch=XCH_A):
-    """Branch-shared 'diagonal intercept' anchor for an x-chunk (padded)."""
-    vm = nv / 2.0
-    zc = (cz_r + p.gzx * (float(xc0) + xch / 2.0 - cx_r - vm * p.evx)
-          + vm * p.evz - vm + (p.edz if arc else 0.0))
-    zoff = jnp.floor(zc).astype(jnp.int32) - (MBA - 2) // 2 + PADZ
-    return jnp.clip(zoff, 0, nzp - nv - MBA)
+def plane_forward(vol_or, params, det_shape, *, block=BLOCK,
+                  interpret: bool = False):
+    """Plane-quadrature slab forward of one orientation group.
 
-
-def _split16(x):
-    hi = x.astype(jnp.bfloat16)
-    lo = (x - hi.astype(jnp.float32)).astype(jnp.bfloat16)
-    return hi, lo
-
-
-def _dot16(sel, hi, lo, dims):
-    f32 = jnp.float32
-    return (lax.dot_general(sel, hi, dims, preferred_element_type=f32)
-            + lax.dot_general(sel, lo, dims, preferred_element_type=f32))
-
-
-def resolve_prec(prec: str | None = None) -> str:
-    """Selection-matmul precision tier.
-
-    ``"f32x2"`` (default): f32 operands split hi/lo into two bf16 MXU
-    passes — ~4e-6 faithful to an f32 matmul (the reference-grade tier;
-    the reference accumulates in f64, ``ray_wt_grad.f90:95-223``, but its
-    *weights* are trilinear hats of f32-rounded positions, so 4e-6 on the
-    gathered values is far inside its own discretization error).
-
-    ``"bf16"``: single bf16 pass — HALF the MXU work of every selection/
-    align/scatter matmul, ~4e-3 per-element faithfulness (measured ~2e-4
-    rel per apply at 256³). The bulk-iteration tier for solvers whose
-    iterates are re-measured against f32 residuals anyway (SIRT, FISTA,
-    early CGLS); pair with a final f32x2 polish (the pipeline's debias
-    stage already runs one).
+    :param vol_or: oriented volume ``(nx, ny, nz)`` f32 (march axis y).
+    :param params: ``(V, len(PARAMS))`` f32 per-view rows, columns in
+        :data:`PARAMS` order.
+    :param det_shape: ``(nu, nv)``.
+    :param block: ``(BU, BV)`` detector tile, powers of two. The detector
+        is padded up to whole tiles and cropped afterwards.
+    :param interpret: run through the Pallas interpreter (CPU tests).
+    :returns: ``(V, nu, nv)`` f32.
     """
-    p = prec or os.environ.get("TOMOJAX_SLAB_PREC", "f32x2")
-    if p not in ("f32x2", "bf16"):
-        raise ValueError(f"unknown slab kernel precision tier {p!r}")
-    return p
-
-
-def _dotp(sel, hi, lo, dims, bf16):
-    if bf16:
-        return lax.dot_general(sel, hi, dims,
-                               preferred_element_type=jnp.float32)
-    return _dot16(sel, hi, lo, dims)
-
-
-class _Scalars:
-    """Named access to the per-view scalar vector inside a kernel
-    (SMEM permits scalar loads only — index each element)."""
-
-    def __init__(self, sc_ref):
-        (self.edy, self.edx, self.edz, self.rx, self.rz, self.eux,
-         self.evx, self.evz, self.cxb, self.czb, self.gzx, self.b1,
-         self.euy, self.evy, self.inv_edy, self.wax, self.wav,
-         self.scale, self.inv_eux, self.euy_ieux, self.zav) = \
-            [sc_ref[0, 0, i] for i in range(NS)]
-
-
-def _pass_b_tiles(p, u0, v0, r, b, cx_r, n_steps, arc):
-    """Per-sample (UCH, VCH) tiles: X, fy, ok, march index j for pass B."""
-    f32 = jnp.float32
-    u_t = u0 + lax.broadcasted_iota(jnp.int32, (UCH, VCH), 0).astype(f32)
-    v_t = v0 + lax.broadcasted_iota(jnp.int32, (UCH, VCH), 1).astype(f32)
-    if arc:
-        w_uv = (r - p.b1 - u_t * p.euy - v_t * p.evy) * p.inv_edy
-        j = jnp.ceil(w_uv) + float(b)
-        cfb = j - w_uv
-        fy = p.edy * cfb
-        ok = ((j >= 0.0) & (j <= float(n_steps - 1))
-              & (fy < 1.0)).astype(f32)
-        X = cx_r + u_t * p.eux + v_t * p.evx + p.edx * cfb
-    else:
-        fy = jnp.zeros((UCH, VCH), f32)
-        ok = jnp.ones((UCH, VCH), f32)
-        j = jnp.zeros((UCH, VCH), f32)
-        X = cx_r + u_t * p.eux + v_t * p.evx
-    return X, fy, ok, j
-
-
-def _window_anchor(p, u0, v0, b, cx_r, nx, arc):
-    """8-aligned pass-B window start (T-row coords), residual folded into
-    bands, and the chunk-relevance predicate.
-
-    Interval analysis: with d = X - xc - du*eux in (-D, D),
-    D = |evx|*VCH/2 + |edx|/2, the hat-active taps have band index
-    m = tap - floor(xc) - k0 + O = d + frac(xc) + frac(eux*du)
-      + {-1..1} + O in (O - D - 1, O + D + 3); O = OFB = 2 puts them in
-    [0, NBB=7) for D < min(O + 1, NBB - 3 - O) = 2 (enforced by
-    kernel_bounds_ok).
-
-    The anchor must track cx_r (m above is anchor-relative), so the low
-    T pad covers every anchor a chunk with in-volume samples can need
-    (xc > -(eux*(UCH-1) + slack) > -XP). The clip therefore only moves
-    anchors of chunks with NO in-volume taps — those are gated off by
-    ``relevant`` (which also skips their matmuls entirely).
-
-    Returns ``(w8, a, relevant)``: the 8-aligned window start, and the
-    anchor residual ``a = wtp - w8`` in 0..7 selecting the pre-built
-    selection block (see :func:`_build_selection`)."""
-    xc = cx_r + u0 * p.eux + (v0 + VCH / 2.0) * p.evx \
-        + (p.edx * (float(b) + 0.5) if arc else 0.0)
-    relevant = (xc > -(p.eux * (UCH - 1) + 8.0)) & (xc < nx + 8.0)
-    wtp = jnp.floor(xc).astype(jnp.int32) - OFB + XP
-    wtp = jnp.clip(wtp, 0, nx + XP + XPH - WINB)
-    w8 = pl.multiple_of((wtp // 8) * 8, 8)
-    return w8, wtp - w8, relevant
-
-
-def _fwd_kernel(sc_ref, vol_ref, out_ref, s_ref, thi_ref, tlo_ref,
-                al_ref, *, nx, ny, nz, nu, nv, K, n_steps, arc,
-                deriv=None, jweight=False, rweight=False, bf16=False):
-    """Forward: grid (V, C); out block (1, nu, nv) revisited across C.
-
-    ``deriv``/``jweight``/``rweight`` select the Jacobian building-block
-    variants (same dataflow, one weight function swapped — see
-    ``slab_projector._forward_oriented_xla``): 'x' = pass-B hat',
-    'z' = pass-A hat', 'y' = fy-blend difference, 'zm' = pass-A hat' with
-    pass-B first-moment weights, 'zc' = pass-A hat' grid-weighted by
-    (cf+b); j/r weights multiply each sample by its march/slab index."""
-    c = pl.program_id(1)
-    f32 = jnp.float32
-    hat_a = _dhat if deriv in ("z", "zm", "zc") else _hat
-    hat_b = (_dhat if deriv == "x"
-             else _mhat if deriv == "zm" else _hat)
-
-    @pl.when(c == 0)
-    def _():
-        out_ref[...] = jnp.zeros(out_ref.shape, f32)
-        s_ref[...] = _build_selection(sc_ref[0, 0, S_EUX])
-        thi_ref[...] = jnp.zeros(thi_ref.shape, jnp.bfloat16)
-        if not bf16:
-            tlo_ref[...] = jnp.zeros(tlo_ref.shape, jnp.bfloat16)
-
-    p = _Scalars(sc_ref)
-    n_branch = 2 if arc else 1
-    n_sides = 2 if arc else 1
-    nzp = nz + 2 * PADZ
-    nva = nv + NVA_PAD
-    xch = _xch(nx)
-
-    for k in range(K):
-        r_i = c * K + k - 1
-        r = r_i.astype(f32)
-        valid = (r_i >= (-1 if arc else 0)) & (r_i <= ny - 1)
-
-        @pl.when(valid)
-        def _(k=k, r=r):
-            cx_r = p.cxb + p.rx * r
-            cz_r = p.czb + p.rz * r
-            wa0r = (r - p.b1 + p.euy_ieux * cx_r) * p.inv_edy
-
-            # ---- pass-A align gather (branch-shared): one selection
-            # matmul per (x-chunk, side) puts the diagonal's taps at
-            # static lane offsets: al[s, x, q] = rows_s[x, zoff + q] ----
-            for xc0 in range(0, nx, xch):
-                zoff = _pass_a_zoff(p, xc0, r, cx_r, cz_r, nv, nzp,
-                                    arc, xch)
-                selza = _build_selza(zoff, nzp, nva)
-                dims = (((1,), (0,)), ((), ()))
-                for s in range(n_sides):
-                    rows = vol_ref[0, k + s, xc0:xc0 + xch, :]
-                    if bf16:
-                        al_ref[s, xc0:xc0 + xch, :] = lax.dot_general(
-                            rows.astype(jnp.bfloat16), selza, dims,
-                            preferred_element_type=f32)
-                    else:
-                        rhi, rlo = _split16(rows)
-                        al_ref[s, xc0:xc0 + xch, :] = (
-                            lax.dot_general(rhi, selza, dims,
-                                            preferred_element_type=f32)
-                            + lax.dot_general(rlo, selza, dims,
-                                              preferred_element_type=f32))
-
-            for b in range(n_branch):
-                # ---- pass-A band combine (VPU): static lane slices of
-                # the aligned frame, hat-weighted per branch ----
-                for xc0 in range(0, nx, xch):
-                    zoff = _pass_a_zoff(p, xc0, r, cx_r, cz_r, nv, nzp,
-                                        arc, xch)
-                    zeta, v_t, cfb_a = _pass_a_zeta_chunk(
-                        p, xc0, r, b, cx_r, cz_r, wa0r, nv, arc, xch)
-                    tapb = (zoff - PADZ).astype(f32) + v_t
-                    for s in range(n_sides):
-                        al = al_ref[s, xc0:xc0 + xch, :]
-                        acc = jnp.zeros((xch, nv), f32)
-                        for m in range(MBA):
-                            acc += hat_a(zeta - (tapb + float(m))) \
-                                * al[:, m:m + nv]
-                        if deriv == "zc":
-                            acc = acc * cfb_a
-                        if bf16:
-                            thi_ref[s, XP + xc0:XP + xc0 + xch, :] = \
-                                acc.astype(jnp.bfloat16)
-                        else:
-                            hi, lo = _split16(acc)
-                            thi_ref[s, XP + xc0:XP + xc0 + xch, :] = hi
-                            tlo_ref[s, XP + xc0:XP + xc0 + xch, :] = lo
-
-                # ---------- pass B + blend + accumulate ----------
-                for uc in range(nu // UCH):
-                    u0 = float(uc * UCH)
-                    for vc in range(nv // VCH):
-                        v0 = float(vc * VCH)
-                        w8, a_res, rel = _window_anchor(p, u0, v0, b,
-                                                        cx_r, nx, arc)
-
-                        @pl.when(rel)
-                        def _(u0=u0, v0=v0, b=b, uc=uc, vc=vc, w8=w8,
-                              a_res=a_res):
-                            X, fy, ok, j_t = _pass_b_tiles(
-                                p, u0, v0, r, b, cx_r, n_steps, arc)
-                            sel = s_ref[pl.ds(
-                                pl.multiple_of(a_res * (NBB * UCH), 8),
-                                NBB * UCH), :]
-                            dims = (((1,), (0,)), ((), ()))
-                            bands = []
-                            for s in range(n_sides):
-                                bands.append(_dotp(
-                                    sel,
-                                    thi_ref[s, pl.ds(w8, WINB),
-                                            vc * VCH:(vc + 1) * VCH],
-                                    None if bf16 else
-                                    tlo_ref[s, pl.ds(w8, WINB),
-                                            vc * VCH:(vc + 1) * VCH],
-                                    dims, bf16))
-
-                            du_t = lax.broadcasted_iota(
-                                jnp.int32, (UCH, VCH), 0).astype(f32)
-                            k0 = jnp.floor(p.eux * du_t)
-                            base_x = (w8 + a_res - XP).astype(f32)
-                            acc = jnp.zeros((UCH, VCH), f32)
-                            for m in range(NBB):
-                                wgt = hat_b(X - (base_x + k0 + float(m)))
-                                s0 = bands[0][m * UCH:(m + 1) * UCH, :]
-                                if arc and deriv == "y":
-                                    s1 = bands[1][m * UCH:(m + 1) * UCH, :]
-                                    acc += wgt * (s1 - s0)
-                                elif arc:
-                                    s1 = bands[1][m * UCH:(m + 1) * UCH, :]
-                                    acc += wgt * (s0 + fy * (s1 - s0))
-                                else:
-                                    acc += wgt * s0
-                            wfin = ok * p.scale
-                            if jweight:
-                                wfin = wfin * j_t
-                            if rweight:
-                                wfin = wfin * r
-                            out_ref[0, uc * UCH:(uc + 1) * UCH,
-                                    vc * VCH:(vc + 1) * VCH] += \
-                                acc * wfin
-
-
-# Jacobian building-block passes emitted by the fused kernel, in the order
-# align/slab_refine._PASSES consumes them (the reference computes the same
-# 12 detector-space fields one ray-sample at a time inside its fused
-# projection+gradient routine, src/ray_wt_grad.f90:95-223).
-JAC_PASSES = ("val", "px", "py", "pz", "jx", "jy", "jz",
-              "rx", "ry", "rz", "zm", "zc")
-NJP = len(JAC_PASSES)
-
-
-def _fwd_jac_kernel(sc_ref, vol_ref, out_ref, s_ref, thi_ref, tlo_ref,
-                    al_ref, *, nx, ny, nz, nu, nv, K, n_steps, arc):
-    """Fused forward + ALL 12 Jacobian building blocks in one pass.
-
-    The 12 variants of :func:`_fwd_kernel` share every expensive stage:
-
-    - the pass-A align matmul is weight-independent (shared verbatim);
-    - pass A needs only THREE band-combine variants — T(hat), T(hat'),
-      T(hat'·cfb) — because hat_a is `_hat` for {val,px,py,jx,jy,rx,ry}
-      and `_dhat` for {pz,jz,rz,zm,zc}, with 'zc' adding the cfb grid
-      weight;
-    - the pass-B selection matmul depends only on the T frame, so 6
-      band matmuls (3 variants × 2 sides) replace the 24 of twelve
-      separate kernel calls;
-    - the j/r sample weights are elementwise per tile, so {jx,rx} reuse
-      px's band accumulation (likewise y/z) — 6 VPU accumulations fan
-      out to 12 outputs.
-
-    Net: ~4× less MXU work, 12× less volume streaming, and ONE Mosaic
-    compile where the per-pass path needs twelve (the dominant cost of
-    the batched-LM refinement program at ≥256³). Arc mode only (the
-    Jacobian passes are arc-quadrature by construction)."""
-    assert arc, "fused Jacobian kernel is arc-mode only"
-    c = pl.program_id(1)
-    f32 = jnp.float32
-
-    @pl.when(c == 0)
-    def _():
-        out_ref[...] = jnp.zeros(out_ref.shape, f32)
-        s_ref[...] = _build_selection(sc_ref[0, 0, S_EUX])
-        thi_ref[...] = jnp.zeros(thi_ref.shape, jnp.bfloat16)
-        tlo_ref[...] = jnp.zeros(tlo_ref.shape, jnp.bfloat16)
-
-    p = _Scalars(sc_ref)
-    nzp = nz + 2 * PADZ
-    nva = nv + NVA_PAD
-    xch = _xch(nx)
-    O = {name: i for i, name in enumerate(JAC_PASSES)}
-
-    for k in range(K):
-        r_i = c * K + k - 1
-        r = r_i.astype(f32)
-        valid = (r_i >= -1) & (r_i <= ny - 1)
-
-        @pl.when(valid)
-        def _(k=k, r=r):
-            cx_r = p.cxb + p.rx * r
-            cz_r = p.czb + p.rz * r
-            wa0r = (r - p.b1 + p.euy_ieux * cx_r) * p.inv_edy
-
-            # ---- pass-A align gather: identical to _fwd_kernel ----
-            for xc0 in range(0, nx, xch):
-                zoff = _pass_a_zoff(p, xc0, r, cx_r, cz_r, nv, nzp,
-                                    True, xch)
-                selza = _build_selza(zoff, nzp, nva)
-                dims = (((1,), (0,)), ((), ()))
-                for s in range(2):
-                    rows = vol_ref[0, k + s, xc0:xc0 + xch, :]
-                    rhi, rlo = _split16(rows)
-                    al_ref[s, xc0:xc0 + xch, :] = (
-                        lax.dot_general(rhi, selza, dims,
-                                        preferred_element_type=f32)
-                        + lax.dot_general(rlo, selza, dims,
-                                          preferred_element_type=f32))
-
-            for b in range(2):
-                # ---- pass-A band combine: 3 weight variants at once ----
-                for xc0 in range(0, nx, xch):
-                    zoff = _pass_a_zoff(p, xc0, r, cx_r, cz_r, nv, nzp,
-                                        True, xch)
-                    zeta, v_t, cfb_a = _pass_a_zeta_chunk(
-                        p, xc0, r, b, cx_r, cz_r, wa0r, nv, True, xch)
-                    tapb = (zoff - PADZ).astype(f32) + v_t
-                    for s in range(2):
-                        al = al_ref[s, xc0:xc0 + xch, :]
-                        acc_h = jnp.zeros((xch, nv), f32)
-                        acc_d = jnp.zeros((xch, nv), f32)
-                        for m in range(MBA):
-                            d = zeta - (tapb + float(m))
-                            acc_h += _hat(d) * al[:, m:m + nv]
-                            acc_d += _dhat(d) * al[:, m:m + nv]
-                        for var, acc in enumerate(
-                                (acc_h, acc_d, acc_d * cfb_a)):
-                            hi, lo = _split16(acc)
-                            thi_ref[var * 2 + s,
-                                    XP + xc0:XP + xc0 + xch, :] = hi
-                            tlo_ref[var * 2 + s,
-                                    XP + xc0:XP + xc0 + xch, :] = lo
-
-                # ---------- pass B + blend + 12-way accumulate ----------
-                for uc in range(nu // UCH):
-                    u0 = float(uc * UCH)
-                    for vc in range(nv // VCH):
-                        v0 = float(vc * VCH)
-                        w8, a_res, rel = _window_anchor(p, u0, v0, b,
-                                                        cx_r, nx, True)
-
-                        @pl.when(rel)
-                        def _(u0=u0, v0=v0, b=b, uc=uc, vc=vc, w8=w8,
-                              a_res=a_res):
-                            X, fy, ok, j_t = _pass_b_tiles(
-                                p, u0, v0, r, b, cx_r, n_steps, True)
-                            sel = s_ref[pl.ds(
-                                pl.multiple_of(a_res * (NBB * UCH), 8),
-                                NBB * UCH), :]
-                            dims = (((1,), (0,)), ((), ()))
-                            bands = [[_dot16(
-                                sel,
-                                thi_ref[var * 2 + s, pl.ds(w8, WINB),
-                                        vc * VCH:(vc + 1) * VCH],
-                                tlo_ref[var * 2 + s, pl.ds(w8, WINB),
-                                        vc * VCH:(vc + 1) * VCH],
-                                dims) for s in range(2)]
-                                for var in range(3)]
-
-                            du_t = lax.broadcasted_iota(
-                                jnp.int32, (UCH, VCH), 0).astype(f32)
-                            k0 = jnp.floor(p.eux * du_t)
-                            base_x = (w8 + a_res - XP).astype(f32)
-                            zt = jnp.zeros((UCH, VCH), f32)
-                            a_val, a_px, a_py = zt, zt, zt
-                            a_pz, a_zm, a_zc = zt, zt, zt
-                            for m in range(NBB):
-                                d = X - (base_x + k0 + float(m))
-                                w_h = _hat(d)
-                                bh0 = bands[0][0][m * UCH:(m + 1) * UCH]
-                                bh1 = bands[0][1][m * UCH:(m + 1) * UCH]
-                                bd0 = bands[1][0][m * UCH:(m + 1) * UCH]
-                                bd1 = bands[1][1][m * UCH:(m + 1) * UCH]
-                                bc0 = bands[2][0][m * UCH:(m + 1) * UCH]
-                                bc1 = bands[2][1][m * UCH:(m + 1) * UCH]
-                                dh = bh1 - bh0
-                                lerp_h = bh0 + fy * dh
-                                lerp_d = bd0 + fy * (bd1 - bd0)
-                                a_val = a_val + w_h * lerp_h
-                                a_py = a_py + w_h * dh
-                                a_px = a_px + _dhat(d) * lerp_h
-                                a_pz = a_pz + w_h * lerp_d
-                                a_zm = a_zm + _mhat(d) * lerp_d
-                                a_zc = a_zc + w_h * (bc0
-                                                     + fy * (bc1 - bc0))
-                            w0 = ok * p.scale
-                            wj = w0 * j_t
-                            wr = w0 * r
-                            us = slice(uc * UCH, (uc + 1) * UCH)
-                            vs = slice(vc * VCH, (vc + 1) * VCH)
-                            for name, term in (
-                                    ("val", a_val * w0),
-                                    ("px", a_px * w0), ("jx", a_px * wj),
-                                    ("rx", a_px * wr),
-                                    ("py", a_py * w0), ("jy", a_py * wj),
-                                    ("ry", a_py * wr),
-                                    ("pz", a_pz * w0), ("jz", a_pz * wj),
-                                    ("rz", a_pz * wr),
-                                    ("zm", a_zm * w0),
-                                    ("zc", a_zc * w0)):
-                                out_ref[0, O[name], us, vs] += term
-
-
-def _adj_kernel(sc_ref, g_ref, sel_ref, out_ref, tbar_ref, aac_ref, *,
-                nx, ny, nz, nu, nv, K, n_steps, arc, bf16=False):
-    """Adjoint: grid (C, V); out block (1, K, nx, NZP) revisited across V.
-
-    SOURCE-major dataflow (round 5): one pass-B sweep per source row r
-    produces BOTH side-weighted cotangent frames at once — side 0 feeds
-    target slab t = r, side 1 (arc) feeds t = r + 1 — via the split
-    tbar = (Σ w·g, Σ w·g·fy): side0 = all − fy, side1 = fy. The
-    per-sample tile math (X, fy, ok, band hats) and the pass-A band
-    hats therefore run once per (source, branch) instead of once per
-    (target, side, branch): 2K sweeps per chunk → K+1. The matmul count
-    rises by (K+1)/K (two weighted matmuls per tile instead of one) but
-    the adjoint is ~70% VPU-bound (bf16-tier A/B: only ~30% of its time
-    tracks the matmul halving), so halving the VPU tile work wins.
-    Boundary sources are recomputed by the neighboring chunk so output
-    blocks never overlap. The per-source align one-hot is built once
-    and reused by both targets' scatter matmuls (each target's
-    cotangents must invert the align gather of ITS source's geometry,
-    which is exactly source r's).
-    """
-    v_id = pl.program_id(1)
-    c = pl.program_id(0)
-    f32 = jnp.float32
-
-    @pl.when(v_id == 0)
-    def _():
-        out_ref[...] = jnp.zeros(out_ref.shape, f32)
-
-    # the per-view selection one-hots stream in as an input block (the
-    # view changes every grid step here — rebuilding them in-kernel per
-    # step cost ~1.5G VPU ops per apply at 256³/32v)
-    p = _Scalars(sc_ref)
-    n_branch = 2 if arc else 1
-    nzp = nz + 2 * PADZ
-    nva = nv + NVA_PAD
-    xch = _xch(nx)
-
-    n_src = K + 1 if arc else K
-    for k2 in range(n_src):
-        r_i = c * K + k2 - (1 if arc else 0)
-        r = r_i.astype(f32)
-        # static target availability within this chunk's output block
-        has0 = (k2 >= 1) if arc else True      # side 0 → out slab k2-1|k2
-        has1 = arc and (k2 <= K - 1)           # side 1 → out slab k2
-        k_t0 = k2 - 1 if arc else k2
-        # dynamic validity (c-dependent): the target slab must exist
-        t0_ok = (r_i >= 0) & (r_i <= ny - 1)
-        t1_ok = (r_i >= -1) & (r_i <= ny - 2)
-        conds = ([t0_ok] if has0 else []) + ([t1_ok] if has1 else [])
-        src_ok = conds[0] if len(conds) == 1 else conds[0] | conds[1]
-
-        @pl.when(src_ok)
-        def _(k2=k2, r=r, has0=has0, has1=has1, k_t0=k_t0,
-              t0_ok=t0_ok, t1_ok=t1_ok):
-            cx_r = p.cxb + p.rx * r
-            cz_r = p.czb + p.rz * r
-            wa0r = (r - p.b1 + p.euy_ieux * cx_r) * p.inv_edy
-            aac_ref[...] = jnp.zeros(aac_ref.shape, f32)
-
-            for b in range(n_branch):
-                # ---- pass-B transpose: ctg → (T-bar_all, T-bar_fy) ----
-                tbar_ref[...] = jnp.zeros(tbar_ref.shape, f32)
-                for uc in range(nu // UCH):
-                    u0 = float(uc * UCH)
-                    for vc in range(nv // VCH):
-                        v0 = float(vc * VCH)
-                        w8, a_res, rel = _window_anchor(
-                            p, u0, v0, b, cx_r, nx, arc)
-
-                        @pl.when(rel)
-                        def _(u0=u0, v0=v0, b=b, uc=uc, vc=vc, w8=w8,
-                              a_res=a_res):
-                            X, fy, ok, _jt = _pass_b_tiles(
-                                p, u0, v0, r, b, cx_r, n_steps, arc)
-                            g = g_ref[0, uc * UCH:(uc + 1) * UCH,
-                                      vc * VCH:(vc + 1) * VCH]
-                            gg = g * (ok * p.scale)
-
-                            du_t = lax.broadcasted_iota(
-                                jnp.int32, (UCH, VCH), 0).astype(f32)
-                            k0 = jnp.floor(p.eux * du_t)
-                            base_x = (w8 + a_res - XP).astype(f32)
-                            ctg_a, ctg_f = [], []
-                            for m in range(NBB):
-                                wgt = _hat(X - (base_x + k0 + float(m)))
-                                wg = wgt * gg
-                                ctg_a.append(wg)
-                                if arc:
-                                    ctg_f.append(wg * fy)
-                            sel = sel_ref[0, pl.ds(
-                                pl.multiple_of(
-                                    a_res * (NBB * UCH), 8),
-                                NBB * UCH), :]
-                            dims = (((0,), (0,)), ((), ()))
-                            planes = [jnp.concatenate(ctg_a, axis=0)]
-                            if arc:
-                                planes.append(
-                                    jnp.concatenate(ctg_f, axis=0))
-                            for pi, ctg in enumerate(planes):
-                                if bf16:
-                                    chi = ctg.astype(jnp.bfloat16)
-                                    clo = None
-                                else:
-                                    chi, clo = _split16(ctg)
-                                tbar = _dotp(sel, chi, clo, dims, bf16)
-                                tbar_ref[pi, pl.ds(w8, WINB),
-                                         vc * VCH:(vc + 1) * VCH] += tbar
-
-                # ---- pass-A transpose, band side: T-bar → aligned
-                # frames (static lane shifts; accumulates branches) ----
-                for xc0 in range(0, nx, xch):
-                    zoff = _pass_a_zoff(p, xc0, r, cx_r, cz_r, nv,
-                                        nzp, arc, xch)
-                    zeta, v_t, _cfb = _pass_a_zeta_chunk(
-                        p, xc0, r, b, cx_r, cz_r, wa0r, nv, arc,
-                        xch)
-                    tapb = (zoff - PADZ).astype(f32) + v_t
-                    tb_a = tbar_ref[0, XP + xc0:XP + xc0 + xch, :]
-                    if arc:
-                        tb_f = tbar_ref[1, XP + xc0:XP + xc0 + xch, :]
-                        tb0 = tb_a - tb_f      # side-0 weight 1 − fy
-                    else:
-                        tb0 = tb_a
-                    # static lane-offset slice accumulation (the old
-                    # jnp.pad per band materialized a full (xch, nva)
-                    # copy each — ~30% extra VPU traffic per apply)
-                    for m in range(MBA):
-                        wgt = _hat(zeta - (tapb + float(m)))
-                        if has0:
-                            aac_ref[0, xc0:xc0 + xch, m:m + nv] += \
-                                wgt * tb0
-                        if has1:
-                            aac_ref[1, xc0:xc0 + xch, m:m + nv] += \
-                                wgt * tb_f
-
-            # ---- pass-A transpose, scatter matmuls (branch- and
-            # side-shared align one-hot of SOURCE r) ----
-            for xc0 in range(0, nx, xch):
-                zoff = _pass_a_zoff(p, xc0, r, cx_r, cz_r, nv,
-                                    nzp, arc, xch)
-                selza = _build_selza(zoff, nzp, nva)
-                dims = (((1,), (1,)), ((), ()))
-
-                def scat(plane):
-                    a = aac_ref[plane, xc0:xc0 + xch, :]
-                    if bf16:
-                        return lax.dot_general(
-                            a.astype(jnp.bfloat16), selza, dims,
-                            preferred_element_type=f32)
-                    ahi, alo = _split16(a)
-                    return (lax.dot_general(
-                        ahi, selza, dims, preferred_element_type=f32)
-                        + lax.dot_general(
-                            alo, selza, dims,
-                            preferred_element_type=f32))
-
-                if has0:
-                    @pl.when(t0_ok)
-                    def _(xc0=xc0, k_t0=k_t0):
-                        out_ref[0, k_t0, xc0:xc0 + xch, :] += scat(0)
-                if has1:
-                    @pl.when(t1_ok)
-                    def _(xc0=xc0, k2=k2):
-                        out_ref[0, k2, xc0:xc0 + xch, :] += scat(1)
-
-
-def _pad_dims(nu, nv, nz):
-    """Kernel-facing padded extents: detector u to UCH sublanes, v to VCH
-    lanes, volume z to 128 lanes (keeps NZP = nzk + 2*PADZ a 128-multiple —
-    Mosaic rejects matmul outputs on odd lane tiles).  The affine sample
-    map is detector-index based, so rays ``u < nu, v < nv`` are
-    bit-identical to the unpadded geometry: extra detector rows/cols are
-    real rays cropped after the call, extra z is zero volume pad
-    contributing nothing.  This is what lets the reference's
-    arbitrary-size configs (64^3/90 views,
-    ``/root/reference/examples/generate_data.py:16``; free dims in
-    ``ray_wt_grad.f90:1-92``) run on the production kernel."""
-    nup = -(-nu // UCH) * UCH
-    nvp = -(-nv // VCH) * VCH
-    nzk = -(-nz // 128) * 128
-    return nup, nvp, nzk
-
-
-def _slab_K(nx, ny):
-    """Slabs per grid step: bounded by VMEM ((K+1, nx, NZP) f32 double-
-    buffered + T/selection/aligned scratch within the 100MB scoped
-    limit), and by ny (no point exceeding the slab count).
-    TOMOJAX_SLAB_K overrides for bench sweeps."""
-    env = os.environ.get("TOMOJAX_SLAB_K")
-    if env:
-        return max(1, min(int(env), ny + 1))
-    K = 16 if nx <= 128 else (8 if nx <= 256 else 3)
-    return min(K, ny + 1)
-
-
-def _statics(geom, quad):
-    nx, ny, nz = geom.vox_shape
-    nu, nv = geom.det_shape
-    nup, nvp, nzk = _pad_dims(nu, nv, nz)
-    K = _slab_K(nx, ny)
-    C = -(-(ny + 1) // K)
-    return dict(nx=nx, ny=ny, nz=nzk, nu=nup, nv=nvp, K=K,
-                n_steps=geom.n_steps, arc=(quad == "arc")), C
-
-
-def kernel_supported(geom, quad: str = "arc") -> bool:
-    """Static shape conditions for the fused kernel (else XLA fallback).
-
-    Non-128-multiple detector/z extents are handled by host-side zero
-    padding + crop in the wrappers (:func:`_pad_dims`); the remaining hard
-    requirements are the 8-aligned square x-y footprint and — in arc mode —
-    ``step_size`` large enough that 2 branches cover every slab interval
-    (the kernels hard-code ``n_branch = 2``; smaller steps need
-    ``ceil(sqrt(2)/step)`` branches and must take the XLA path)."""
-    nx, ny, nz = geom.vox_shape
-    nu, nv = geom.det_shape
-    if quad == "arc" and int(np.ceil(np.sqrt(2.0) / geom.step_size
-                                     + 0.01)) > 2:
-        return False
-    nup, nvp, nzk = _pad_dims(nu, nv, nz)
-    return bool(nx % 8 == 0 and nvp <= nzk + PADZ and nx == ny
-                and _xch(nx) is not None
-                and nx + XP + XPH >= WINB + XP)
-
-
-def kernel_bounds_ok(scalars_np, nv: int = 256) -> bool:
-    """Per-view-batch dynamic bounds (rigid jitter must stay within the
-    static band budget; beyond → XLA fallback keeps correctness).
-
-    ``nv`` is the detector-v extent: the z-per-v slope deviation ``zav``
-    accumulates over the half-detector from the window's center anchor.
-    The pass-A drift budget is the align-matmul one ((XCH_A/2)·gzx over
-    an x-chunk); the pass-B window bound caps eux at
-    (WINB - NBB - 15)/(UCH - 1) ≈ 1.67 (real geometries top out near
-    1/cos(45°) ≈ 1.42 plus jitter)."""
-    s = np.asarray(scalars_np, np.float64)
-    nvh = _pad_dims(8, nv, 128)[1] / 2.0
-    evx, edx = np.abs(s[:, S_EVX]), np.abs(s[:, S_EDX])
-    eux = np.abs(s[:, S_EUX])
-    gzx, edz = np.abs(s[:, S_GZX]), np.abs(s[:, S_EDZ])
-    zav = np.abs(s[:, S_ZAV] - 1.0)
-    pass_b = (evx * (VCH / 2) + 0.5 * edx
-              <= min(OFB + 1, NBB - 3 - OFB) - 0.05)
-    pass_a = ((XCH_A / 2 + 0.5) * gzx + edz + zav * nvh
-              <= (MBA - 3) / 2 - 0.1)
-    win = (8 + eux * (UCH - 1) + NBB + 7 <= WINB)
-    return bool(np.all(pass_b & pass_a & win))
-
-
-def _prep_volume(vol_or, C, K, nzk=None):
-    """Oriented (nx, ny, nz) volume → overlapped (C, K+1, nx, NZP) f32,
-    with z zero-padded up to the kernel extent ``nzk`` (128-lane
-    multiple)."""
     nx, ny, nz = vol_or.shape
-    nzk = nz if nzk is None else nzk
-    v = jnp.transpose(vol_or, (1, 0, 2)).astype(jnp.float32)  # (ny, nx, nz)
-    rows = C * K + 1
-    v = jnp.pad(v, ((1, rows - ny - 1), (0, 0),
-                    (PADZ, PADZ + (nzk - nz))))
-    return jnp.stack([lax.dynamic_slice_in_dim(v, c * K, K + 1, axis=0)
-                      for c in range(C)])
-
-
-def slab_project_pallas(vol_or, scalars, geom, quad: str,
-                        interpret: bool = False, deriv: str | None = None,
-                        jweight: bool = False, rweight: bool = False,
-                        prec: str | None = None):
-    """Forward-project a batch of same-orientation views.
-
-    :param vol_or: oriented volume (nx', ny', nz).
-    :param scalars: (V, NS) per-view scalar vectors (may be traced — the
-        refinement loop feeds jnp scalars recomputed from θ each
-        iteration).
-    :param deriv/jweight/rweight: Jacobian building-block variants (see
-        :func:`_fwd_kernel`); arc mode only.
-    :returns: (V, nu, nv) f32 sinograms (u-major within a view)."""
-    if deriv is not None or jweight or rweight:
-        assert quad == "arc", "Jacobian variants are arc-mode only"
-        assert deriv in (None, "x", "y", "z", "zm", "zc"), \
-            f"unknown deriv variant {deriv!r}"
-    if os.environ.get("TOMOJAX_SLAB_KERNEL") == "interpret":
-        interpret = True      # CPU-mesh tests of kernel-routed operators
-    statics, C = _statics(geom, quad)
-    V0 = scalars.shape[0]
-    V = -(-V0 // 8) * 8     # bucket the view-batch size: every group /
-    #                         refinement chunk size would otherwise be a
-    #                         distinct Mosaic compile (slow + a hang risk
-    #                         on the flaky worker); dummy rows replicate
-    #                         row 0 and are cropped
-    if V != V0:
-        scalars = jnp.concatenate(
-            [scalars, jnp.broadcast_to(scalars[:1],
-                                       (V - V0,) + scalars.shape[1:])])
-    K = statics["K"]
-    vol_ov = _prep_volume(vol_or, C, K, statics["nz"])
-    nx, nz = statics["nx"], statics["nz"]
-    nu, nv = statics["nu"], statics["nv"]
-    NZP = nz + 2 * PADZ
-    NXPS = nx + XP + XPH
-    bf16 = resolve_prec(prec) == "bf16"
-    kern = functools.partial(_fwd_kernel, deriv=deriv, jweight=jweight,
-                             rweight=rweight, bf16=bf16, **statics)
+    nu, nv = det_shape
+    bu, bv = block
+    n_views = params.shape[0]
+    gu, gv = pl.cdiv(nu, bu), pl.cdiv(nv, bv)
+    kernel = lambda *refs: _plane_fwd_kernel(*refs, nx=nx, ny=ny, nz=nz,
+                                             bu=bu, bv=bv)
     out = pl.pallas_call(
-        kern,
-        grid=(V, C),
-        in_specs=[
-            pl.BlockSpec((1, 1, NS), lambda v, c: (v, 0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, K + 1, nx, NZP), lambda v, c: (c, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, nu, nv), lambda v, c: (v, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((V, nu, nv), jnp.float32),
-        scratch_shapes=[
-            pltpu.VMEM((8 * NBB * UCH, WINB), jnp.bfloat16),
-            pltpu.VMEM((2, NXPS, nv), jnp.bfloat16),
-            # lo-half T unused in the bf16 tier: dummy allocation
-            pltpu.VMEM((2, 8, 128) if bf16 else (2, NXPS, nv),
-                       jnp.bfloat16),
-            pltpu.VMEM((2, nx, nv + NVA_PAD), jnp.float32),
-        ],
+        kernel,
+        grid=(n_views, gu, gv),
+        in_specs=[pl.no_block_spec, pl.no_block_spec],
+        out_specs=pl.BlockSpec((None, bu, bv), lambda b, i, j: (b, i, j)),
+        out_shape=jax.ShapeDtypeStruct((n_views, gu * bu, gv * bv),
+                                       jnp.float32),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=4),
         interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
-    )(scalars.astype(jnp.float32).reshape(-1, 1, NS), vol_ov)
-    nu0, nv0 = geom.det_shape
-    return out[:V0, :nu0, :nv0]
-
-
-def slab_project_jac_pallas(vol_or, scalars, geom,
-                            interpret: bool = False):
-    """All 12 Jacobian building-block fields in ONE fused kernel call.
-
-    Returns ``(V, NJP, nu, nv)`` f32, pass order :data:`JAC_PASSES` —
-    slice ``[:, i]`` equals ``slab_project_pallas(..., **variant_i)``
-    (same math, shared dataflow; see :func:`_fwd_jac_kernel`). Arc only.
-
-    This is the production path of the batched-LM alignment refinement
-    (``align/slab_refine.py``): per LM iteration ONE call replaces the
-    twelve per-variant kernel launches — and, critically for the remote
-    TPU worker, one Mosaic compile replaces twelve."""
-    if os.environ.get("TOMOJAX_SLAB_KERNEL") == "interpret":
-        interpret = True
-    statics, C = _statics(geom, "arc")
-    V0 = scalars.shape[0]
-    V = -(-V0 // 8) * 8     # V-bucketing (see slab_project_pallas)
-    if V != V0:
-        scalars = jnp.concatenate(
-            [scalars, jnp.broadcast_to(scalars[:1],
-                                       (V - V0,) + scalars.shape[1:])])
-    K = statics["K"]
-    vol_ov = _prep_volume(vol_or, C, K, statics["nz"])
-    nx, nz = statics["nx"], statics["nz"]
-    nu, nv = statics["nu"], statics["nv"]
-    NZP = nz + 2 * PADZ
-    NXPS = nx + XP + XPH
-    kern = functools.partial(_fwd_jac_kernel, **statics)
-    out = pl.pallas_call(
-        kern,
-        grid=(V, C),
-        in_specs=[
-            pl.BlockSpec((1, 1, NS), lambda v, c: (v, 0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, K + 1, nx, NZP), lambda v, c: (c, 0, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, NJP, nu, nv),
-                               lambda v, c: (v, 0, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((V, NJP, nu, nv), jnp.float32),
-        scratch_shapes=[
-            pltpu.VMEM((8 * NBB * UCH, WINB), jnp.bfloat16),
-            pltpu.VMEM((6, NXPS, nv), jnp.bfloat16),
-            pltpu.VMEM((6, NXPS, nv), jnp.bfloat16),
-            pltpu.VMEM((2, nx, nv + NVA_PAD), jnp.float32),
-        ],
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
-    )(scalars.astype(jnp.float32).reshape(-1, 1, NS), vol_ov)
-    nu0, nv0 = geom.det_shape
-    return out[:V0, :, :nu0, :nv0]
-
-
-def slab_backproject_pallas(gbar, scalars, geom, quad: str,
-                            interpret: bool = False,
-                            prec: str | None = None):
-    """Adjoint: (V, nu, nv) cotangents → oriented volume (nx', ny', nz)."""
-    if os.environ.get("TOMOJAX_SLAB_KERNEL") == "interpret":
-        interpret = True
-    statics, C = _statics(geom, quad)
-    V0 = scalars.shape[0]
-    V = -(-V0 // 8) * 8     # V-bucketing (see slab_project_pallas):
-    #                         dummy rows carry zero cotangents, so the
-    #                         summed adjoint is unchanged
-    nx, ny, nz = statics["nx"], statics["ny"], statics["nz"]
-    nu, nv = statics["nu"], statics["nv"]
-    K = statics["K"]
-    NZP = nz + 2 * PADZ
-    NXPS = nx + XP + XPH
-    nu0, nv0 = geom.det_shape
-    gbar = gbar.reshape(V0, nu0, nv0)
-    if (nu, nv) != (nu0, nv0) or V != V0:
-        gbar = jnp.pad(gbar, ((0, V - V0), (0, nu - nu0), (0, nv - nv0)))
-    if V != V0:
-        scalars = jnp.concatenate(
-            [scalars, jnp.broadcast_to(scalars[:1],
-                                       (V - V0,) + scalars.shape[1:])])
-    kern = functools.partial(_adj_kernel,
-                             bf16=resolve_prec(prec) == "bf16", **statics)
-    # per-view selection one-hots built ONCE in XLA (vmapped iota
-    # compare, trivial) and streamed per grid step — the kernel used to
-    # rebuild them on the VPU at every (c, v) step
-    sel_all = jax.vmap(_build_selection)(
-        scalars.astype(jnp.float32)[:, S_EUX])
-    out = pl.pallas_call(
-        kern,
-        grid=(C, V),
-        in_specs=[
-            pl.BlockSpec((1, 1, NS), lambda c, v: (v, 0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((1, nu, nv), lambda c, v: (v, 0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, 8 * NBB * UCH, WINB), lambda c, v: (v, 0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, K, nx, NZP), lambda c, v: (c, 0, 0, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((C, K, nx, NZP), jnp.float32),
-        scratch_shapes=[
-            # (all, fy) cotangent planes in arc mode; single plane plane
-            pltpu.VMEM((2 if statics["arc"] else 1, NXPS, nv),
-                       jnp.float32),
-            pltpu.VMEM((2 if statics["arc"] else 1, nx, nv + NVA_PAD),
-                       jnp.float32),
-        ],
-        interpret=interpret,
-        compiler_params=pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024),
-    )(scalars.astype(jnp.float32).reshape(-1, 1, NS),
-      gbar.astype(jnp.float32), sel_all)
-    nz0 = geom.vox_shape[2]
-    vol = out.reshape(C * K, nx, NZP)[:ny, :, PADZ:PADZ + nz0]
-    return jnp.transpose(vol, (1, 0, 2))
+        name="slab_plane_forward",
+    )(params.astype(jnp.float32), vol_or.astype(jnp.float32).reshape(-1))
+    return out[:, :nu, :nv]

@@ -1,7 +1,7 @@
 // tomonative — native CPU runtime for tomojax.
 //
 // The role the reference delegates to compiled Fortran (src/ray_wt_grad.f90
-// via f2py) is played on the TPU side by XLA/Pallas; this library is the
+// via f2py) is played on the accelerator by XLA/Pallas; this library is the
 // native HOST runtime: a multithreaded, exact-semantics CPU implementation
 // of the ray-driven projector used as (a) the high-speed validation oracle
 // for sizes where a NumPy implementation is impractical (256^3+), (b) the

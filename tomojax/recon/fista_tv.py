@@ -1,6 +1,6 @@
 """TV-regularized reconstruction by FISTA forward–backward splitting.
 
-TPU-native replacement for the reference's ``RegularizedRecon.run_fista``
+Replacement for the reference's ``RegularizedRecon.run_fista``
 (``recon/regularized.py:57-154``) and its MPI twin
 (``regularized_mpi.py:80-190``):
 
@@ -86,7 +86,7 @@ def fista_tv(op: TomoOperator, b, *, niter: int = 100,
         t_new = 0.5 * (1.0 + jnp.sqrt(1.0 + 4.0 * t * t))
         x_new = u + (t - 1.0) / t_new * (u - u_old)
 
-        fid = 0.5 * jnp.vdot(res, res).real.astype(dtype)
+        fid = 0.5 * jnp.vdot(res, res, precision="highest").real.astype(dtype)
         total = fid + beta * tv.tv_norm_3d(x_new)
         if gt is None:
             rms_k = jnp.sqrt(2.0 * fid) / norm_factor

@@ -1,6 +1,6 @@
 """L1-regularized least squares (lasso) by ISTA / accelerated ISTA (FISTA).
 
-TPU-native replacement for the reference's ``run_lasso_ista``
+Replacement for the reference's ``run_lasso_ista``
 (``recon/regularized.py:239-315``), ``run_lasso_accelerated``
 (``:334-413``), ``_backtrack_lasso`` (``:317-332``) and
 ``soft_thresholding`` (``:433-440``), plus the MPI twins in
@@ -48,9 +48,10 @@ def _backtrack(op, b, x, grad, g0, lam, t0, shrink, min_t=1e-16):
         xp = soft_thresholding(x - t * grad, t * lam)
         Gt = x - xp
         r = op.A(xp) - b
-        g = 0.5 * jnp.vdot(r, r).real.astype(dtype)
-        gp = (g0 - jnp.vdot(grad, Gt).real
-              + (0.5 / t) * jnp.vdot(Gt, Gt).real).astype(dtype)
+        g = 0.5 * jnp.vdot(r, r, precision="highest").real.astype(dtype)
+        gp = (g0 - jnp.vdot(grad, Gt, precision="highest").real
+              + (0.5 / t) * jnp.vdot(Gt, Gt, precision="highest").real
+              ).astype(dtype)
         return xp, g <= gp
 
     def cond(c):
@@ -87,7 +88,7 @@ def _lasso(op: TomoOperator, b, *, niter, reg_param, alpha0, shrink,
         x, k = c["x"], c["k"]
         res = op.A(x) - b
         grad = op.AT(res)
-        g0 = 0.5 * jnp.vdot(res, res).real.astype(dtype)
+        g0 = 0.5 * jnp.vdot(res, res, precision="highest").real.astype(dtype)
         _, t, ok = _backtrack(op, b, x, grad, g0, lam, alpha0, shrink)
 
         if accelerated:

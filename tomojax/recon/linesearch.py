@@ -27,7 +27,7 @@ def armijo(f: Callable, x, direction, grad, f0, *, alpha0=1.0, c1=1e-4,
 
     ``f`` must be a jittable scalar function of the iterate.
     """
-    gd = jnp.vdot(grad, direction).real
+    gd = jnp.vdot(grad, direction, precision="highest").real
     dtype = jnp.asarray(f0).dtype
     alpha0 = jnp.asarray(alpha0, dtype)
 
@@ -57,7 +57,7 @@ def wolfe(f: Callable, grad_f: Callable, x, direction, grad, f0, *,
     (``alignment_functions.py:76-78``). ``grad_f`` returns the gradient at
     an iterate; one extra gradient evaluation per trial step.
     """
-    gd = jnp.vdot(grad, direction).real
+    gd = jnp.vdot(grad, direction, precision="highest").real
     dtype = jnp.asarray(f0).dtype
 
     def cond(c):
@@ -70,7 +70,8 @@ def wolfe(f: Callable, grad_f: Callable, x, direction, grad, f0, *,
         f_new = f(x_new)
         g_new = grad_f(x_new)
         armijo_ok = f_new <= f0 + c1 * alpha * gd
-        curvature_ok = jnp.vdot(g_new, direction).real >= c2 * gd
+        curvature_ok = (jnp.vdot(g_new, direction, precision="highest").real
+                        >= c2 * gd)
         ok = armijo_ok & curvature_ok
         alpha_next = jnp.where(ok, alpha, alpha * shrink)
         return (alpha_next, f_new, it + 1, ok)

@@ -1,6 +1,6 @@
 """SIRT — simultaneous iterative reconstruction, as one jitted loop.
 
-TPU-native replacement for the reference's ``recon/sirt.py`` (serial) and
+Replacement for the reference's ``recon/sirt.py`` (serial) and
 ``recon/sirt_mpi.py`` (angle-sharded). The update is
 
     x ← x + V ⊙ Aᵀ(W ⊙ (b − A x))

@@ -1,6 +1,6 @@
 """Tikhonov-regularized least squares by gradient descent + Armijo search.
 
-TPU-native replacement for the reference's
+Replacement for the reference's
 ``RegularizedRecon.run_tikhonov_gd`` (``recon/regularized.py:156-237``,
 MPI twin ``regularized_mpi.py``) and ``SIRT.run_regularized_gradient_descent``
 (``recon/sirt.py:109-180``):
@@ -56,7 +56,8 @@ def tikhonov_gd(op: TomoOperator, b, *, niter: int = 100,
 
     def objective(x):
         r = op.A(x) - b
-        return 0.5 * (jnp.vdot(r, r).real + lam * jnp.vdot(x, x).real
+        return 0.5 * (jnp.vdot(r, r, precision="highest").real
+                      + lam * jnp.vdot(x, x, precision="highest").real
                       ).astype(dtype)
 
     def objective_grad(x):
@@ -69,7 +70,8 @@ def tikhonov_gd(op: TomoOperator, b, *, niter: int = 100,
         x, k = c["x"], c["k"]
         res = b - op.A(x)
         grad = -op.AT(res) + lam * x
-        f0 = 0.5 * (jnp.vdot(res, res).real + lam * jnp.vdot(x, x).real
+        f0 = 0.5 * (jnp.vdot(res, res, precision="highest").real
+                    + lam * jnp.vdot(x, x, precision="highest").real
                     ).astype(dtype)
         if step_search == "wolfe":
             ls = wolfe(objective, objective_grad, x, -grad, grad, f0)

@@ -1,6 +1,6 @@
 """Total-variation denoising (dual FISTA prox) — pure jnp, jittable.
 
-TPU-native re-implementation of the reference's ``utilities/tv_denoise.py``
+Re-implementation of the reference's ``utilities/tv_denoise.py``
 (itself derived from E. Gouillart's tomo-tv): the isotropic-TV proximal
 operator solved in the dual domain with FISTA momentum
 (``tv_denoise.py:98-170``), Lipschitz factor 12 for 3-D / 8 for 2-D
